@@ -1,4 +1,4 @@
-"""ldpc_erasure_codes_tpu: a TPU-native packet-level FEC erasure-coding framework.
+"""ldpc_erasure_codes_tpu: a JAX packet-level FEC erasure-coding framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 LDPC_Erasure_Codes stack (MATLAB research tier + OpenCL/FPGA streaming tier):

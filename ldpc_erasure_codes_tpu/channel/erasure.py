@@ -1,6 +1,6 @@
 """Erasure channel models on device.
 
-The reference injects erasures three ways; all are reproduced here TPU-side:
+The reference injects erasures three ways; all are reproduced here on the device:
 
 * i.i.d. uniform with real-valued PER
   (Matlab/LDPCErasureCodes_MessagePassingAlgSim.m:183-188);

@@ -21,7 +21,7 @@ grid product code (Matlab/Grid_Erasure_Code_Parity_gen.m:1-34), and the
 row/column weight histograms (Matlab/scratch.m:1-11).
 
 Code construction runs once per code on the host — it is deliberately not a
-TPU kernel (SURVEY.md §7 stage 2). Degree profiles are lists of
+device kernel (SURVEY.md §7 stage 2). Degree profiles are lists of
 ``(count, degree)`` pairs, highest degree first, matching the reference's
 ``deg_*_prof`` convention.
 """

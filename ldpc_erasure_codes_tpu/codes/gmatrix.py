@@ -12,7 +12,7 @@ triangle form:
   columns of G span rank k (Matlab/LDPCErasureCodes.m:108-115);
 * the random-code MDS-gap rank study (Matlab/ErasureCodePerformance.m:1-114).
 
-All of it is per-code one-time host work; the TPU decode path consumes the
+All of it is per-code one-time host work; the device decode path consumes the
 result through the standard CodeArrays.
 """
 

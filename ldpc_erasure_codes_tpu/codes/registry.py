@@ -5,14 +5,14 @@ The reference keeps each code in three redundant forms: a MATLAB sparse H
 and a host-side params table (``OpenCL/host/inc/Main_LDPC_header.h:10-14``).
 Here a code is a single :class:`LDPCCode` value object holding the padded
 check-neighbor lists (the Vlist form — it is both the sparse storage and the
-natural gather-index layout for TPU kernels), with every derived array the
+natural gather-index layout for device kernels), with every derived array the
 kernels need computed lazily and cached:
 
-* dense int8 H for MXU mask matmuls,
+* dense int8 H for mask matmuls,
 * the dense parity generator ``P`` such that ``parity = source @ P`` (the
   one-matmul systematic encoder; bit-exact equal to the reference's sequential
   triangular back-substitution, Matlab/LDPCErasureCodes_MessagePassingAlgSim.m:164-174),
-* binary images of the GF(256) variants for MXU GF matmuls.
+* binary images of the GF(256) variants for GF matmuls.
 
 Codes are (de)serialized as ``.npz`` (see io.py); the two production codes are
 shipped in ``ldpc_erasure_codes_tpu/data/codes/``.
@@ -137,7 +137,7 @@ class LDPCCode:
         Derived once per code by GF(2) forward substitution on the triangular
         parity block: H = [A | L], L lower-triangular unit-ish diagonal, so
         p = L^{-1} A s. Turns the reference's inherently sequential encoder
-        loop into a single MXU matmul with bit-identical output.
+        loop into a single matmul with bit-identical output.
         """
         if self.gf_order != 2:
             raise ValueError("parity_gen is for binary codes; use parity_gen_nb")
@@ -178,7 +178,7 @@ class LDPCCode:
 
     @functools.cached_property
     def h_bits_nb(self) -> np.ndarray:
-        """(8m, 8n) int8 binary image of the GF(256) H for MXU syndromes."""
+        """(8m, 8n) int8 binary image of the GF(256) H for matmul syndromes."""
         return gf.bit_image(self.h_dense_nb).astype(np.int8)
 
     def lift_to_gf256(self, seed: int = 0, name: str | None = None) -> "LDPCCode":

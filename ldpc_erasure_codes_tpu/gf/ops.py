@@ -1,16 +1,15 @@
-"""Device-side GF(2^8) primitives for JAX/TPU.
+"""Device-side GF(2^8) primitives for JAX.
 
 Three formulations, all traced under ``jit``:
 
-1. **Carryless arithmetic (VPU path, the default ``gf_mul``)** — schoolbook
+1. **Carryless arithmetic (the default ``gf_mul``)** — schoolbook
    polynomial multiply + modular reduction, ~30 pure vector ops per element.
-   Measured ~47x faster than the table gather on TPU (5.6 vs 0.12 G mults/s).
 2. **Table gathers** (``gf_mul_table``/``gf_mul_log``) — the reference's
-   formulation (Matlab/My_RS_Decode_Optimize_With_GFTables.m:61-67); random
-   VMEM gathers serialize on TPU, kept for reference/benchmarking.
-3. **Binary image (MXU path)** — GF(256) matmuls lifted to GF(2) matmuls 8x
-   larger per axis, executed as int8 matmuls with int32 accumulation on the
-   systolic array, then reduced mod 2. This is where the FLOPs belong on TPU.
+   formulation (Matlab/My_RS_Decode_Optimize_With_GFTables.m:61-67), kept
+   for reference/benchmarking.
+3. **Binary image (matmul path)** — GF(256) matmuls lifted to GF(2) matmuls
+   8x larger per axis, executed as int8 matmuls with int32 accumulation,
+   then reduced mod 2.
 
 Erasures are represented *out of band* (a separate boolean mask), unlike the
 reference's in-band ``-1`` sentinel (Matlab/My_LDPC_Erasure_Decoder.m:5) —
@@ -49,8 +48,6 @@ def _device_tables(prim_poly: int = gf_tables.DEFAULT_PRIM_POLY):
 def gf_mul_table(a: jax.Array, b: jax.Array) -> jax.Array:
     """Elementwise GF(256) product via one flat-table gather.
 
-    Measured ~47x SLOWER than :func:`gf_mul_arith` on TPU v5e at decoder
-    shapes (0.12 vs 5.6 G mults/s) — random gathers serialize on the VPU.
     Kept for reference/benchmarking; :func:`gf_mul` is the arithmetic path.
     """
     d = _device_tables()
@@ -78,14 +75,13 @@ def gf_mul_arith(
     prim_poly: int = gf_tables.DEFAULT_PRIM_POLY,
 ) -> jax.Array:
     """Elementwise GF(256) product by carryless multiply + reduction — no
-    table gathers, ~30 pure VPU ops on uint16 lanes.
+    table gathers, ~30 pure vector ops on uint16 lanes.
 
     Schoolbook polynomial multiply (8 shift-select-XOR steps) followed by
-    modular reduction by the field's primitive polynomial (7 steps). On TPU
-    this trades the flat-table gather of :func:`gf_mul` (one random VMEM
-    access per element) for vector ALU work — the winning formulation when
-    the operand tensors are large and gather-bound (e.g. the GF(256)
-    Gauss-Jordan row updates). ``prim_poly`` selects the field, matching the
+    modular reduction by the field's primitive polynomial (7 steps). This
+    trades the flat-table gather (one random access per element) for vector
+    ALU work, for operand tensors that are large and gather-bound (e.g. the
+    GF(256) Gauss-Jordan row updates). ``prim_poly`` selects the field, matching the
     parameterization of the table paths.
     """
     poly = jnp.uint16(prim_poly)
@@ -165,7 +161,7 @@ def gf_add(a: jax.Array, b: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Binary-image (MXU) formulation
+# Binary-image (matmul) formulation
 # ---------------------------------------------------------------------------
 
 
@@ -193,7 +189,7 @@ def gf_matmul_bitimage(u: jax.Array, g_bits: jax.Array) -> jax.Array:
         :func:`ldpc_erasure_codes_tpu.gf.tables.bit_image`.
 
     Returns:
-      (..., n) uint8 product. The contraction runs on the MXU as an int8
+      (..., n) uint8 product. The contraction runs as an int8
       matmul with int32 accumulation, then reduces mod 2.
     """
     ub = bytes_to_bits(u)  # (..., 8k) int8
@@ -207,7 +203,7 @@ def gf_matmul_bitimage(u: jax.Array, g_bits: jax.Array) -> jax.Array:
 
 
 def mod2_matmul(x: jax.Array, m: jax.Array) -> jax.Array:
-    """(x @ m) mod 2 with int32 MXU accumulation; inputs are 0/1 int8."""
+    """(x @ m) mod 2 with int32 accumulation; inputs are 0/1 int8."""
     acc = jax.lax.dot_general(
         x,
         m,

@@ -1,13 +1,13 @@
 """GF(2^8) arithmetic tables.
 
-TPU-native re-design of the reference's MATLAB table builder
+Re-design of the reference's MATLAB table builder
 (reference: Matlab/Build_GF256_Lookup_Tables.m:7-77). The reference builds three
 lookup tables from MATLAB ``gf`` objects: a 256x256 add table (= bitwise XOR),
 a 256x256 multiply table built via log/antilog composition, and a 255-entry
 inverse table. We build the same tables from first principles (log/antilog over
 the primitive polynomial) in NumPy, once, at import/build time; the JAX compute
-path consumes them as device-resident ``uint8`` arrays (they live comfortably
-in VMEM: mult table is 64 KiB).
+path consumes them as device-resident ``uint8`` arrays (the mult table is
+64 KiB).
 
 Primitive polynomial: the reference declares ``prim_poly_m8 = [1 0 1 1 1 0 0 0 1]``
 (highest-degree coefficient first, Matlab/ErasureCodes_NonBinaryLDPCSim.m:70,
@@ -153,7 +153,7 @@ def _bit_image_basis(prim_poly: int = DEFAULT_PRIM_POLY) -> np.ndarray:
     ``basis[h, b, c]`` = bit ``c`` of ``h * x^b``. Multiplication by a constant
     ``h`` is GF(2)-linear on the 8-bit vector representation, so a GF(256)
     matrix lifts to a GF(2) matrix 8x larger in each dimension; GF(256) matmuls
-    then become binary matmuls that run on the MXU (see gf/ops.py).
+    then become binary matmuls (see gf/ops.py).
     """
     t = build_tables(prim_poly)
     basis = np.zeros((256, 8, 8), dtype=np.uint8)
@@ -168,7 +168,7 @@ def bit_image(mat: np.ndarray, prim_poly: int = DEFAULT_PRIM_POLY) -> np.ndarray
     """Lift a GF(256) matrix (m, n) to its GF(2) binary image (8m, 8n).
 
     With bytes unpacked LSB-first into bit vectors, ``bits(u) @ bit_image(G)
-    mod 2 == bits(u @ G over GF(256))``. This is the MXU-native formulation of
+    mod 2 == bits(u @ G over GF(256))``. This is the matmul formulation of
     GF(256) linear algebra (the reference explores the same binary-image idea
     host-side in Matlab/GF_play.m:104-118).
     """

@@ -1,6 +1,6 @@
 // Native host-side IO/runtime for ldpc_erasure_codes_tpu.
 //
-// TPU-native equivalent of the reference's C++ host-harness data path
+// Native equivalent of the reference's C++ host-harness data path
 // (OpenCL/host/src/main.cpp): golden test-vector file IO with the 16-bit
 // replicate-into-symbol expansion (main.cpp:329-401), the bit-plane
 // pack/transpose that feeds packed symbol words to the device, and
@@ -77,8 +77,8 @@ int ldpc_collapse_symbols(const uint32_t *symbols, int n, int words,
 
 // Bit-plane pack: bits (b, s, n) row-major {0,1} bytes -> packed words
 // (b, n, s/32) uint32, bit t of word w = plane s = 32*w + t (LSB-first).
-// This is the host-side transpose between the MXU-friendly bit-plane layout
-// and the VPU-friendly packed-word layout.
+// This is the host-side transpose between the matmul-friendly bit-plane layout
+// and the packed-word layout the wide kernels use.
 int ldpc_pack_bitplanes(const uint8_t *bits, int b, int s, int n,
                         uint32_t *packed) {
   if (s % 32) return -1;

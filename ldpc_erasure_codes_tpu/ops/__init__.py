@@ -11,18 +11,15 @@ from ldpc_erasure_codes_tpu.ops.encode import (
     make_packed_encoder,
 )
 from ldpc_erasure_codes_tpu.ops.ge import ge_rank_check, ge_solve
-from ldpc_erasure_codes_tpu.ops.pallas_channel import channel_apply_per64
-from ldpc_erasure_codes_tpu.ops.pallas_encode import encode_packed_vmem
-from ldpc_erasure_codes_tpu.ops.pallas_peel import (
-    peel_decode_vmem,
-    tile_wide,
-    untile_wide,
-)
 from ldpc_erasure_codes_tpu.ops.hybrid import (
     hybrid_decode,
     hybrid_decode_escalated,
 )
-from ldpc_erasure_codes_tpu.ops.peel_wide import peel_decode_wide
+from ldpc_erasure_codes_tpu.ops.peel_replay import peel_decode_replay
+from ldpc_erasure_codes_tpu.ops.peel_wide import (
+    peel_decode_packed,
+    peel_decode_wide,
+)
 from ldpc_erasure_codes_tpu.ops.peel import (
     peel_decode,
     peel_decode_mask,
@@ -33,14 +30,12 @@ from ldpc_erasure_codes_tpu.ops.peel import (
 
 __all__ = [
     "CodeArrays",
-    "channel_apply_per64",
     "compact_ge_rank",
     "compact_ge_solve",
     "device_arrays",
     "encode",
     "encode_nb",
     "encode_packed",
-    "encode_packed_vmem",
     "encode_scan",
     "encode_wide",
     "ge_rank_check",
@@ -49,10 +44,9 @@ __all__ = [
     "hybrid_decode_escalated",
     "make_packed_encoder",
     "peel_decode",
-    "peel_decode_vmem",
-    "tile_wide",
-    "untile_wide",
     "peel_decode_mask",
+    "peel_decode_packed",
+    "peel_decode_replay",
     "peel_decode_wide",
     "peel_decode_with_history",
     "peel_step_gather",

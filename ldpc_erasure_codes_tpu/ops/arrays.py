@@ -24,7 +24,7 @@ class CodeArrays(NamedTuple):
     kernels (passed statically), not here.
 
     Attributes:
-      h: (m, n) int8 binary support of H (mask form, MXU operand).
+      h: (m, n) int8 binary support of H (mask form, matmul operand).
       h_t: (n, m) int8 transpose of ``h`` (contraction layout).
       h_nb: (m, n) uint8 GF(256) coefficient matrix (equals ``h`` for
         binary codes).
@@ -44,12 +44,6 @@ class CodeArrays(NamedTuple):
       enc_par_val: (m, pmax) uint8 coefficients, pad 0.
       enc_diag_inv: (m,) uint8 — inverse of each row's diagonal (triangle)
         coefficient; all-ones for binary codes.
-      check_groups: (ngroups, 4) int32 — consecutive checks grouped greedily
-        into pairwise-DISJOINT (no shared symbol) runs of <= 4, pad = m.
-        Disjoint consecutive checks commute under the sequential peeling
-        sweep, so a group's loads can all be hoisted ahead of its stores —
-        the VMEM decoder's ``schedule="grouped"`` ILP form of the exact
-        MATLAB schedule (ops/pallas_peel._make_grouped_kernel).
     """
 
     h: jnp.ndarray
@@ -67,7 +61,6 @@ class CodeArrays(NamedTuple):
     enc_par_idx: jnp.ndarray
     enc_par_val: jnp.ndarray
     enc_diag_inv: jnp.ndarray
-    check_groups: jnp.ndarray
 
 
 def _code_digest(code: LDPCCode) -> str:
@@ -129,26 +122,6 @@ def _host_arrays(code: LDPCCode) -> dict:
             enc_par_idx[r, j] = c
             enc_par_val[r, j] = v
 
-    # Greedy grouping of CONSECUTIVE checks into pairwise-disjoint runs of
-    # <= 4 (pad = m): within a run no symbol is shared, so the runs' member
-    # checks commute under the sequential sweep and their loads can be
-    # issued together (schedule="grouped").
-    sets = [
-        set(int(x) for x in code.vlist_idx[r] if x < n) for r in range(m)
-    ]
-    groups: list[list[int]] = [[0]]
-    syms = set(sets[0])
-    for c in range(1, m):
-        if len(groups[-1]) < 4 and not (sets[c] & syms):
-            groups[-1].append(c)
-            syms |= sets[c]
-        else:
-            groups.append([c])
-            syms = set(sets[c])
-    check_groups = np.full((len(groups), 4), m, dtype=np.int32)
-    for i, grp in enumerate(groups):
-        check_groups[i, : len(grp)] = grp
-
     out = dict(
         h=hd,
         h_t=hd.T.copy(),
@@ -165,7 +138,6 @@ def _host_arrays(code: LDPCCode) -> dict:
         enc_par_idx=enc_par_idx,
         enc_par_val=enc_par_val,
         enc_diag_inv=t.inv[diag],
-        check_groups=check_groups,
     )
     _HOST_ARRAYS_CACHE[key] = out
     return out

@@ -69,7 +69,7 @@ def compact_ge_solve(
 
     Same contract as ge_solve: returns (values, erased, failed). ``ge_impl``:
     ``"auto"`` picks the packed-bit elimination (:func:`ge_solve_packed`,
-    ~10x less per-pivot HBM traffic + MXU value apply) for wide binary
+    ~10x less per-pivot memory traffic + matmul value apply) for wide binary
     uint32 frames and the byte path otherwise; ``"bytes"`` forces the
     original formulation."""
     b = erased.shape[0]

@@ -6,9 +6,9 @@ inherently serial loop over parity rows
 Matlab/ErasureCodes_NonBinaryLDPCSim.m:172-182 GF(256); the FPGA keeps the
 same row-sequential schedule, OpenCL/device/ldpc_erasure_encoder.cl:72-84).
 
-TPU-first design: the triangular solve is precomputed **once per code** on the
+Design: the triangular solve is precomputed **once per code** on the
 host (codes/registry.py parity_gen), turning encode into a single dense
-mod-2 / GF(256)-bit-image matmul on the MXU with bit-identical output. The
+mod-2 / GF(256)-bit-image matmul with bit-identical output. The
 sequential `lax.scan` formulation is retained as a cross-check oracle
 (the reference's dual-implementation test pattern,
 Matlab/LDPCErasureCodes.m:117-129).
@@ -26,7 +26,7 @@ from ldpc_erasure_codes_tpu.ops.arrays import CodeArrays
 def encode(arrays: CodeArrays, source: jax.Array) -> jax.Array:
     """Binary systematic encode: (..., k) uint8 bits -> (..., n) uint8.
 
-    One int8 matmul on the MXU: parity = (source @ P) mod 2.
+    One int8 matmul: parity = (source @ P) mod 2.
     """
     p = gf.mod2_matmul(source.astype(jnp.int8), arrays.parity_gen)
     return jnp.concatenate([source.astype(jnp.uint8), p.astype(jnp.uint8)], axis=-1)
@@ -36,7 +36,7 @@ def encode_nb(arrays: CodeArrays, source: jax.Array) -> jax.Array:
     """GF(256) systematic encode: (..., k) uint8 -> (..., n) uint8.
 
     The GF(256) parity generator is applied through its binary image
-    (arrays.parity_gen is (8k, 8m) for non-binary codes), i.e. an int8 MXU
+    (arrays.parity_gen is (8k, 8m) for non-binary codes), i.e. an int8
     matmul over bit lanes.
     """
     p = gf.gf_matmul_bitimage(source, arrays.parity_gen)
@@ -72,11 +72,10 @@ def encode_packed(
     2. parity stage: ``p = L^{-1} t`` via ``lax.scan`` over parity rows — each
        step XORs the row's few strictly-lower parity neighbors (typically <= 3)
        and divides by the diagonal coefficient. The sequential axis is m steps
-       of tiny VPU work; batch and lane axes keep the VPU full.
+       of tiny vector work; batch and word axes keep it wide.
 
-    GF(256) path: the scan's per-step table gathers are far too slow on TPU
-    (measured ~250x slower than the alternative), so packed GF encode runs
-    the precomputed parity generator's binary image on the MXU with the lane
+    GF(256) path: the scan's per-step table gathers are slow, so packed GF
+    encode runs the precomputed parity generator's binary image as a matmul with the lane
     axis folded into the batch — identical output, one big int8 matmul.
     """
     b, k, w = source.shape
@@ -86,7 +85,7 @@ def encode_packed(
         lanes_first = jnp.moveaxis(source, 2, 1)  # (B, W, k)
         # The bit-image matmul folds (B, W) into one giant batch; chunk the
         # lane axis so the folded operand stays bounded (B*W = 256k lanes of
-        # a k=1530 code is a ~3 GB int8 operand otherwise — HBM OOM).
+        # a k=1530 code is a ~3 GB int8 operand otherwise — out of device memory).
         limit = max(1, 32768 // max(1, b))
         if w <= limit:
             cw = encode_nb(arrays, lanes_first)  # (B, W, n)
@@ -193,7 +192,7 @@ def encode_scan(arrays: CodeArrays, source: jax.Array, n: int, k: int) -> jax.Ar
 
     ``lax.scan`` over parity rows, each step XOR-reducing the row's neighbors
     (minus the triangle diagonal) from the partially built codeword — the
-    direct TPU transcription of the reference's loop. O(m) sequential steps;
+    direct transcription of the reference's loop. O(m) sequential steps;
     used in tests to certify the matmul encoder, never on the hot path.
     """
     m, dmax = arrays.vlist_idx.shape

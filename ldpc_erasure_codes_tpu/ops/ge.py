@@ -5,7 +5,7 @@ y_known`` by sequential row-reduction with row swaps per codeword
 (Matlab/My_LDPC_HybridML_Erasure_Decoder.m:48-88 binary,
 Matlab/My_LDPC_HybridML_NonBinary_Erasure_Decoder.m:61-128 GF(256)).
 
-TPU-native re-design: fixed shapes + full batching.
+Batched re-design: fixed shapes + full batching.
 
 * The per-codeword erased-column set (data-dependent size) is padded to a
   static bucket ``emax``; pad slots get **virtual unit columns** in an extra
@@ -22,7 +22,7 @@ TPU-native re-design: fixed shapes + full batching.
   Like the reference, solved values are still written back; callers must gate
   on the flag.
 
-Work is O(B . (m+emax) . emax^2) byte-ops on the VPU; the hybrid decoder only
+Work is O(B . (m+emax) . emax^2) byte-ops; the hybrid decoder only
 reaches this kernel for codewords the peeler could not finish, and ``emax``
 buckets keep the cube small.
 """
@@ -156,40 +156,28 @@ def _bits_to_words(bits: jax.Array) -> jax.Array:
     return jnp.sum(b * weights, axis=-1, dtype=jnp.uint32)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("emax", "return_rows", "static_topo")
-)
+@functools.partial(jax.jit, static_argnames=("emax",))
 def ge_solve_packed(
     arrays: CodeArrays,
     values: jax.Array,
     erased: jax.Array,
     *,
     emax: int,
-    return_rows: bool = False,
-    static_topo: tuple | None = None,
-) -> tuple[jax.Array, ...]:
-    """Binary wide-symbol GE with packed-bit elimination + one MXU apply.
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Binary wide-symbol GE with packed-bit elimination + one matmul apply.
 
-    Returns (values, erased, failed), or with ``return_rows=True`` the
-    4-tuple (x, safe_idx, erased, failed) described below.
-
-    ``return_rows=True`` skips the in-frame placement and returns
-    ``(x, safe_idx, erased, failed)`` instead: x is the (B, emax, W)
-    uint32 solved rows (ZERO on non-writable slots), safe_idx the
-    (B, emax) int32 target symbol of each row (== n for discards) — for
-    callers that scatter into a different layout (the tile-major hybrid
-    writeback, ops/hybrid.py).
+    Returns (values, erased, failed).
 
     Same contract and results as :func:`ge_solve` (gf_order=2, wide uint32
     values), restructured for the memory hierarchy: :func:`ge_solve` streams
-    the (B, m+emax, W)-word right-hand side through HBM once per pivot
+    the (B, m+emax, W)-word right-hand side through device memory once per pivot
     (~W*4 bytes per row per pivot — the dominant cost at GE-hot operating
-    points, VERDICT r2 weak #3). Here the pivot loop carries only the packed
+    points). Here the pivot loop carries only the packed
     coefficient matrix [A | T] — m rows of A's emax columns plus an identity
     block T tracking the accumulated row ops, ceil((emax+m)/32) uint32 words
     per row, ~30x less per-pivot traffic at the production shapes — and the
     wide values are touched exactly once at the end: the solved symbols are
-    ``x = T_top . rhs`` over GF(2), computed as a bit-plane int8 MXU matmul
+    ``x = T_top . rhs`` over GF(2), computed as a bit-plane int8 matmul
     (chunked over the symbol width to bound the unpacked intermediate).
 
     Pivot order, failure flags, and solved values are identical to
@@ -221,16 +209,10 @@ def ge_solve_packed(
     # just removes emax dead rows (and halves T) from every elimination
     # pass: (m+emax) x (wa + ceil((m+emax)/32)) -> m x (wa + ceil(m/32))
     # words per frame per pivot (~3x less traffic at the GE-hot shapes).
-    # Lane-major, batch-on-lanes layout (round 4 — the ge_solve_wide_nb
-    # lesson applied back to the binary solver): the packed [A | T] rows
-    # live as (m, C, B) with the BATCH on the minor (lane) axis. The old
-    # (B, m, C) layout put the C ~= 32 packed words on lanes — a quarter
-    # of the 128-lane vector unit, with every per-pivot pass paying the
-    # 4x lane padding; at the GE-hot hybrid points (emax=512, f_max=448)
-    # the 512-step elimination dominated the whole decode (~370 ms of a
-    # 388 ms step at PER .2031). With B on lanes every pass runs
-    # full-width for B >= 128. Pivot choices, failure flags, and solved
-    # values are unchanged (asserted vs ge_solve).
+    # Batch-minor layout (as in ge_solve_wide_nb): the packed [A | T] rows
+    # live as (m, C, B) with the BATCH on the minor axis, since C is only
+    # ~32 packed words. Pivot choices, failure flags, and solved values
+    # are unchanged (asserted vs ge_solve).
     a_top = jnp.take(arrays.h.astype(jnp.uint8), er_idx, axis=1)  # (m, B, E)
     a_mb = jnp.transpose(a_top, (0, 2, 1)) * jnp.transpose(real)[
         None
@@ -282,46 +264,10 @@ def ge_solve_packed(
         failed = failed | (~has & (col < nreal))
         return r, used, pivrow, failed
 
-    # The VMEM elimination holds the cube twice (in block + out block)
-    # per 128-frame lane tile; shapes whose 2x cube exceeds the usable
-    # VMEM (big-m codes with wide T, e.g. (4000,2000): 65 words x 2000
-    # rows x 128 lanes x 4 B x 2 = 133 MB > 128) fall back to the XLA
-    # fori elimination rather than failing the Mosaic compile.
-    _cube_fits = (
-        2 * (wa + wt) * (-(-m // 8) * 8) * 128 * 4 <= 100 * 1024 * 1024
+    r, _, pivrow, failed = jax.lax.fori_loop(
+        0, emax, step, (r, used0, pivrow0, overflow)
     )
-    if jax.default_backend() != "cpu" and _cube_fits:
-        # VMEM-resident elimination (ops/pallas_elim.py): the XLA
-        # fori_loop above re-streams the packed cube from HBM every pivot
-        # (~74 GB over 512 steps at the GE-hot hybrid shape — measured
-        # ~80 ms of the 151 ms solve); the kernel DMAs the cube into
-        # VMEM once per 128-frame lane tile and runs all pivots on-chip.
-        # Pivot choices, failure flags, and the eliminated cube are
-        # byte-identical (tests/test_pallas_elim.py).
-        from ldpc_erasure_codes_tpu.ops.pallas_elim import f2_eliminate
-
-        m_pad8 = -(-m // 8) * 8
-        bt_e = 128
-        b_pad = -(-b // bt_e) * bt_e
-        r_k = jnp.pad(
-            jnp.transpose(r, (1, 0, 2)),
-            ((0, 0), (0, m_pad8 - m), (0, b_pad - b)),
-        )  # (C, m_pad, B_pad); pad rows/frames are all-zero (never pivot)
-        nreal_k = jnp.pad(
-            nreal[None, :].astype(jnp.int32), ((0, 0), (0, b_pad - b))
-        )
-        r_o, piv_o, fail_o = f2_eliminate(
-            r_k, nreal_k, emax=emax, b_tile=bt_e, a_words=wa
-        )
-        # Kernel layout is (C, m_pad, B) -> back to (B, m, C).
-        r = jnp.transpose(r_o[:, :m, :b], (2, 1, 0))
-        pivrow = jnp.transpose(piv_o[:, :b], (1, 0))
-        failed = overflow | (fail_o[0, :b] != 0)
-    else:
-        r, _, pivrow, failed = jax.lax.fori_loop(
-            0, emax, step, (r, used0, pivrow0, overflow)
-        )
-        r = jnp.transpose(r, (2, 0, 1))  # back to (B, m, C)
+    r = jnp.transpose(r, (2, 0, 1))  # back to (B, m, C)
 
     # x = T[pivot rows] . rhs over GF(2). The virtual rows' rhs is zero, so
     # only the first m columns of T contribute.
@@ -331,113 +277,27 @@ def ge_solve_packed(
     t_bits = _words_to_bits(t_rows)[..., :m]  # (B, emax, m) int8
     w = values.shape[2]
     writable = real & ~overflow[:, None]
-    if jax.default_backend() != "cpu" and (4 * w) % 128 == 0:
-        # Fused VMEM kernels (the RS/NB solver's round-4 path, GF(2)
-        # flavor — ops/pallas_nbmm.py): the XLA formulation's costs at
-        # the hybrid PER-.2031 shape (B=448, emax=512, W=256 words) were
-        # syndrome 28.9 ms (a ~6 GB neighbor-gather intermediate) and
-        # T-apply + scatter ~64 ms (chunked (B, m, 32wc) bit tensors);
-        # each byte-bit plane is one int8 MXU contraction in VMEM and
-        # placement is the one-hot matmul (erased slots zero).
-        from ldpc_erasure_codes_tpu.ops.pallas_nbmm import (
-            f2_apply_scatter,
-            f2_matvec_wide,
-        )
+    rhs_top = _syndrome_known(arrays, values, 2)  # (B, m, W) uint32
+    cw = min(w, 64)  # 2048-bit bit-plane chunks bound the unpacked temp
+    xs = []
+    for off in range(0, w, cw):
+        wc = min(cw, w - off)
+        rb = _words_to_bits(rhs_top[:, :, off : off + wc])  # (B,m,32wc)
+        acc = jax.lax.dot_general(
+            t_bits,
+            rb,
+            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+            preferred_element_type=jnp.int32,
+        )  # (B, emax, 32wc)
+        xs.append(_bits_to_words(acc & 1))
+    x = jnp.concatenate(xs, axis=2) if len(xs) > 1 else xs[0]
 
-        m_pad = -(-m // 8) * 8
-        e_pad = -(-emax // 8) * 8
-        # ceil32(n + 1), NOT max(n+1, ceil32(n)): when n % 32 == 0 (the
-        # shipped (4000,2000) code) the latter gives an odd n_pad, and the
-        # kernels' in-VMEM uint8->uint32 sublane bitcast needs the row
-        # count divisible by 4.
-        n_pad = -(-(n + 1) // 32) * 32
-        # Constant-topology tiled syndrome (round 5): the dense-K MXU
-        # syndrome contracts K=n_pad against a matrix with only E
-        # nonzeros (~27 ms at 36% MXU utilization at the .2031 GE shape);
-        # with the host topology available, the peel-style unrolled
-        # slice-XOR kernel computes the same rhs in ~1/4 the time
-        # (ops/pallas_synd.py; bit-identical, tested).
-        _bt_s = 32
-        # 85 MB ceiling, not the kernels' usual ~100: the (2000,1000)
-        # shape's 98 MB single-buffered windows compiled but ran
-        # pathologically slow in battery context (VALIDATION round-5
-        # hybrid notes); the production (2040,1530) shape is 83.7 MB.
-        _synd_fits = (
-            static_topo is not None
-            and b % _bt_s == 0
-            and ((n + 1) + m_pad) * _bt_s * w * 4 <= 85 * 1024 * 1024
-        )
-        if _synd_fits:
-            from ldpc_erasure_codes_tpu.ops.pallas_synd import (
-                syndrome_from_topo,
-            )
-
-            rhs_mw = syndrome_from_topo(
-                values, topo=static_topo, m_pad=m_pad, bt=_bt_s
-            )
-        values_p = jnp.pad(values, ((0, 0), (0, n_pad - n), (0, 0)))
-        # In-jit byte view of the wide words (free; a materialized uint8
-        # HBM array would pay a physical retile).
-        vb = jax.lax.bitcast_convert_type(values_p, jnp.uint8).reshape(
-            b, n_pad, 4 * w
-        )
-        if not _synd_fits:
-            ht = jnp.pad(
-                arrays.h.astype(jnp.int8), ((0, m_pad - m), (0, n_pad - n))
-            )
-            rhs_mw = f2_matvec_wide(vb, ht)
-        tb = jnp.pad(
-            t_bits, ((0, 0), (0, e_pad - emax), (0, m_pad - m))
-        )
-        if return_rows:
-            from ldpc_erasure_codes_tpu.ops.pallas_nbmm import (
-                f2_matmul_batched,
-            )
-
-            xb = f2_matmul_batched(rhs_mw, tb)[:, :emax, :]
-            x = jax.lax.bitcast_convert_type(
-                xb.reshape(b, emax, w, 4), jnp.uint32
-            )
-            x = jnp.where(writable[:, :, None], x, jnp.uint32(0))
-            safe_idx = jnp.where(writable, er_idx, n).astype(jnp.int32)
-            solved = ~failed
-            erased = erased & ~solved[:, None]
-            return x, safe_idx, erased, failed
-        safe_idx = jnp.pad(
-            jnp.where(writable, er_idx, n).astype(jnp.int32),
-            ((0, 0), (0, e_pad - emax)),
-            constant_values=n,
-        )
-        out_b = f2_apply_scatter(vb, rhs_mw, tb, safe_idx)
-        values = jax.lax.bitcast_convert_type(
-            out_b.reshape(b, n_pad, w, 4), jnp.uint32
-        )[:, :n]
-    else:
-        rhs_top = _syndrome_known(arrays, values, 2)  # (B, m, W) uint32
-        cw = min(w, 64)  # 2048-bit bit-plane chunks bound the int8 temp
-        xs = []
-        for off in range(0, w, cw):
-            wc = min(cw, w - off)
-            rb = _words_to_bits(rhs_top[:, :, off : off + wc])  # (B,m,32wc)
-            acc = jax.lax.dot_general(
-                t_bits,
-                rb,
-                dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.int8,  # mod-256 wrap keeps parity
-            )  # (B, emax, 32wc)
-            xs.append(_bits_to_words(acc & 1))
-        x = jnp.concatenate(xs, axis=2) if len(xs) > 1 else xs[0]
-
-        x = x * writable[:, :, None].astype(x.dtype)
-        safe_idx = jnp.where(writable, er_idx, n).astype(jnp.int32)
-        if return_rows:
-            solved = ~failed
-            erased = erased & ~solved[:, None]
-            return x, safe_idx, erased, failed
-        bidx = jnp.arange(b)[:, None]
-        values_p = _pad_n(values, 1)
-        values_p = values_p.at[bidx, safe_idx].set(x)
-        values = values_p[:, :n]
+    x = x * writable[:, :, None].astype(x.dtype)
+    safe_idx = jnp.where(writable, er_idx, n).astype(jnp.int32)
+    bidx = jnp.arange(b)[:, None]
+    values_p = _pad_n(values, 1)
+    values_p = values_p.at[bidx, safe_idx].set(x)
+    values = values_p[:, :n]
     solved = ~failed
     erased = erased & ~solved[:, None]
     return values, erased, failed
@@ -470,7 +330,7 @@ def _bit_image_dev(mat: jax.Array) -> jax.Array:
     (..., 8p, 8q) int8, image[8i+b, 8j+c] = bit c of (mat[i,j] * x^b).
 
     Arithmetic construction (7 xtime chains + bit unpack) — no table
-    gathers, so it runs at VPU speed for per-frame matrices (the host
+    gathers, so it runs at vector speed for per-frame matrices (the host
     :func:`gf.tables.bit_image` serves precomputed constants). Matches the
     host convention bit-exactly (tested), so ``bits(u) @ img mod 2 ==
     bits(u @ mat over GF(256))``."""
@@ -492,13 +352,13 @@ def ge_solve_wide_nb(
     *,
     emax: int,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """GF(256) wide-symbol GE: narrow byte elimination + bit-image MXU apply.
+    """GF(256) wide-symbol GE: narrow byte elimination + bit-image matmul apply.
 
     The GF(256) analog of :func:`ge_solve_packed`: the pivot loop eliminates
     the NARROW augmented system [A | T] (A = erased coefficient columns, T =
     identity tracking the accumulated row ops — (B, m, emax+m) bytes) and
     never touches the wide payloads; the wide values are handled
-    by exactly two MXU passes at the end:
+    by exactly two matmul passes at the end:
 
     * syndrome ``rhs = H_nb . y_known`` as a bit-plane int8 matmul against
       the binary image of H (built on device arithmetically — 7 xtime
@@ -506,10 +366,10 @@ def ge_solve_wide_nb(
     * solution ``x = T_top . rhs`` as a *batched* bit-image matmul (each
       frame's T gets its own on-device binary image).
 
-    This is the TPU-first form of the reference's table-gather row updates
+    This is the batched form of the reference's table-gather row updates
     (Matlab/My_RS_Decode_Optimize_With_GFTables.m:55-91,
     My_LDPC_HybridML_NonBinary_Erasure_Decoder.m:98-126): same solution,
-    failure flags from the same pivot order, wide work on the MXU instead of
+    failure flags from the same pivot order, wide work in matmuls instead of
     per-pivot wide row streams.
 
     Args/returns: as :func:`ge_solve` with gf_order=256 and (B, n, W) uint8
@@ -527,23 +387,18 @@ def ge_solve_wide_nb(
     # are all-zero, find no pivot, and are masked out of the scatter — so
     # the elimination carries only the m real check rows and T = I(m).
     #
-    # SWAR-packed, batch-on-lanes elimination (round 4): the [A | T] rows
-    # are stored as uint32 words holding FOUR GF(256) bytes each, in a
-    # (m, C, B) layout with the BATCH on the minor (lane) axis. Two
-    # measured motivations (docs/DESIGN.md GE anatomy — the byte cube was
-    # 16.4 ms of the 36.3 ms RS step at B=1024):
+    # SWAR-packed, batch-minor elimination: the [A | T] rows are stored
+    # as uint32 words holding FOUR GF(256) bytes each, in a (m, C, B)
+    # layout with the BATCH on the minor axis.
     #
-    # * gf_mul_arith costs ~30 uint16 VPU ops per byte with one byte per
-    #   32-bit lane; packing quarters both the element count and the
-    #   per-product op count (the pivot row's eight xtime images are formed
-    #   once per step and every row's update is 8 mask-multiply-XOR passes
-    #   — double-and-add over the factor bits).
-    # * BUT a (B, m, C) layout wastes the win: C = ceil((emax+m)/4) is
-    #   ~32 words at the RS shapes, so the minor dim fills 32 of 128 lanes
-    #   and lane padding eats the 4x (measured: 16.4 -> 15.1 ms). With B on
-    #   the lane axis every pass runs full-width for B >= 128, and the
-    #   pivot-row gather becomes a one-hot masked reduction over m (rows
-    #   stay in sublanes).
+    # * gf_mul_arith costs ~30 uint16 vector ops per byte; packing quarters
+    #   both the element count and the per-product op count (the pivot
+    #   row's eight xtime images are formed once per step and every row's
+    #   update is 8 mask-multiply-XOR passes — double-and-add over the
+    #   factor bits).
+    # * C = ceil((emax+m)/4) is only ~32 words at the RS shapes, so the
+    #   batch, not C, is the long contiguous axis of every pass, and the
+    #   pivot-row gather becomes a one-hot masked reduction over m.
     #
     # A is padded to a word boundary so T stays word-aligned. Pivot
     # choices, failure flags, and the recovered transform are
@@ -611,38 +466,10 @@ def ge_solve_wide_nb(
         failed = failed | (~has & (col < nreal))
         return r, used, pivrow, failed
 
-    # Same 2x-cube VMEM guard as the binary solver.
-    _cube_fits = (
-        2 * (wa + wt) * (-(-m // 8) * 8) * 128 * 4 <= 100 * 1024 * 1024
+    r, _, pivrow, failed = jax.lax.fori_loop(
+        0, emax, step, (r, used0, pivrow0, overflow)
     )
-    if jax.default_backend() != "cpu" and _cube_fits:
-        # VMEM-resident elimination (ops/pallas_elim.py::gf256_eliminate,
-        # same rationale and layout as the binary f2_eliminate): the XLA
-        # fori_loop re-streams the packed cube from HBM every pivot.
-        from ldpc_erasure_codes_tpu.ops.pallas_elim import gf256_eliminate
-
-        m_pad8 = -(-m // 8) * 8
-        bt_e = 128
-        b_pad = -(-b // bt_e) * bt_e
-        r_k = jnp.pad(
-            jnp.transpose(r, (1, 0, 2)),
-            ((0, 0), (0, m_pad8 - m), (0, b_pad - b)),
-        )  # (C, m_pad, B_pad)
-        nreal_k = jnp.pad(
-            nreal[None, :].astype(jnp.int32), ((0, 0), (0, b_pad - b))
-        )
-        r_o, piv_o, fail_o = gf256_eliminate(
-            r_k, nreal_k, emax=emax, b_tile=bt_e,
-            prim_poly=DEFAULT_PRIM_POLY, a_words=wa,
-        )
-        r = jnp.transpose(r_o[:, :m, :b], (2, 1, 0))  # (B, m, C)
-        pivrow = jnp.transpose(piv_o[:, :b], (1, 0))
-        failed = overflow | (fail_o[0, :b] != 0)
-    else:
-        r, _, pivrow, failed = jax.lax.fori_loop(
-            0, emax, step, (r, used0, pivrow0, overflow)
-        )
-        r = jnp.transpose(r, (2, 0, 1))  # back to (B, m, C)
+    r = jnp.transpose(r, (2, 0, 1))  # back to (B, m, C)
 
     # rhs = H_nb . y_known: erased slots hold zero, so the full-H product is
     # the known-only sum. Then x = T[pivot rows] . rhs per frame.
@@ -650,95 +477,31 @@ def ge_solve_wide_nb(
     t_top = _unpack_words_bytes(
         jnp.take_along_axis(r[:, :, wa:], pivrow[:, :, None], axis=1)
     )[:, :, :m]  # (B, emax, m)
-    w = values.shape[2]
-    # VMEM gate for the fused syndrome kernel (ADVICE r4): gf_matvec_wide
-    # holds the full (8, 8*m_pad, n_pad) transposed image per program
-    # (64*m_pad*n_pad bytes — ~64 MB already at the NB-LDPC m=510/n=2040
-    # shape) plus the int32 accumulator and double-buffered payload/output
-    # blocks at the minimum 128-lane chunk; a larger GF(256) code would
-    # fail the remote Mosaic compile at runtime instead of falling back.
-    m_pad_est = -(-m // 8) * 8
-    n_pad_est = -(-(n + 1) // 32) * 32
-    _mv_bytes = (
-        64 * m_pad_est * n_pad_est          # transposed plane-major image
-        + 8 * m_pad_est * 128 * 4           # int32 accumulator at wc=128
-        + 2 * (n_pad_est + m_pad_est) * 128  # payload + output, 2 buffers
+    # Bit-plane products accumulate in int32 and keep the parity bit.
+    ub = gf.bytes_to_bits(jnp.transpose(values, (0, 2, 1)))  # (B,W,8n)
+    acc = jax.lax.dot_general(
+        ub, h_img,
+        dimension_numbers=(((2,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
     )
-    _mv_fits = _mv_bytes <= 100 * 1024 * 1024
-    if jax.default_backend() != "cpu" and w % 128 == 0 and _mv_fits:
-        # Fused VMEM kernels (ops/pallas_nbmm.py): SWAR unpack + MXU
-        # contraction + byte repack, chained in the kernels' native
-        # (B, rows, W) layout — the XLA formulation materialized the
-        # (B, W, 8n) bit tensor in HBM and was VPU-unpack-bound (~17 ms
-        # syndrome + ~10 ms apply at the RS B=1024/1 KB point vs ~1 ms
-        # for the fused pair — docs/DESIGN.md).
-        from ldpc_erasure_codes_tpu.ops.pallas_nbmm import (
-            gf_apply_scatter,
-            gf_matvec_wide,
-        )
-
-        # One shared zero-padded tensor serves both the syndrome kernel's
-        # lane-aligned input (rows n..n_pad zero) and the scatter base
-        # (rows n.. = the pad-slot dump row) — the duplicate (B, ~n, W)
-        # pad pass measured ~1 ms at the RS B=1024 point.
-        # ceil32(n + 1), NOT max(n+1, ceil32(n)): when n % 32 == 0 (the
-        # shipped (4000,2000) code) the latter gives an odd n_pad, and the
-        # kernels' in-VMEM uint8->uint32 sublane bitcast needs the row
-        # count divisible by 4.
-        n_pad = -(-(n + 1) // 32) * 32
-        values_p = jnp.pad(values, ((0, 0), (0, n_pad - n), (0, 0)))
-        rhs_mw = gf_matvec_wide(values_p, h_img, out_layout="mw")
-        m_pad = rhs_mw.shape[1]
-        e_pad = -(-emax // 8) * 8
-        # T enters the apply kernel as BYTES; its transposed plane-major
-        # image is built in-kernel (an XLA-side image build measured
-        # ~5 ms here — 64x HBM expansion plus padded-5-D VPU shift work),
-        # and the solved rows are placed at their erased positions by the
-        # SAME kernel (the standalone XLA row scatter measured ~2.9 ms).
-        # Non-writable slots point at the dump row n, which is never read.
-        mats = jnp.pad(
-            t_top, ((0, 0), (0, e_pad - emax), (0, m_pad - m))
-        )
-        writable = real & ~overflow[:, None]
-        safe_idx = jnp.pad(
-            jnp.where(writable, er_idx, n).astype(jnp.int32),
-            ((0, 0), (0, e_pad - emax)),
-            constant_values=n,
-        )
-        values_p = gf_apply_scatter(values_p, rhs_mw, mats, safe_idx)
-        values = values_p[:, :n]
-    else:
-        # XLA fallback (CPU backend / unaligned widths). int8 accumulation:
-        # the popcount over <= 8n terms wraps mod 256, which preserves the
-        # parity bit and quarters the accumulator's HBM footprint.
-        ub = gf.bytes_to_bits(jnp.transpose(values, (0, 2, 1)))  # (B,W,8n)
-        acc = jax.lax.dot_general(
-            ub, h_img,
-            dimension_numbers=(((2,), (0,)), ((), ())),
-            preferred_element_type=jnp.int8,
-        )
-        rhs = gf.bits_to_bytes(acc & 1)  # (B, W, m) bytes
-        tt_img = _bit_image_dev(
-            jnp.transpose(t_top, (0, 2, 1))
-        )  # (B, 8m, 8emax)
-        rb = gf.bytes_to_bits(rhs)  # (B, W, 8m)
-        xb = jax.lax.dot_general(
-            rb, tt_img,
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.int8,  # mod-256 wrap keeps parity
-        )
-        x = jnp.transpose(gf.bits_to_bytes(xb & 1), (0, 2, 1))  # (B,emax,W)
-        values_p = _pad_n(values, 1)
-        writable = real & ~overflow[:, None]
-        x = x * writable[:, :, None].astype(x.dtype)
-        bidx = jnp.arange(b)[:, None]
-        safe_idx = jnp.where(writable, er_idx, n)
-        # Direct row scatter. Measured negative alternative: inverting the
-        # index map on the small int32 side and placing rows with
-        # take_along_axis + select runs ~4 ms SLOWER — TPU row gathers
-        # serialize like the scatter and the select adds a full extra pass.
-        values_p = values_p.at[bidx, safe_idx].set(x)
-        values = values_p[:, :n]
+    rhs = gf.bits_to_bytes(acc & 1)  # (B, W, m) bytes
+    tt_img = _bit_image_dev(
+        jnp.transpose(t_top, (0, 2, 1))
+    )  # (B, 8m, 8emax)
+    rb = gf.bytes_to_bits(rhs)  # (B, W, 8m)
+    xb = jax.lax.dot_general(
+        rb, tt_img,
+        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.int32,
+    )
+    x = jnp.transpose(gf.bits_to_bytes(xb & 1), (0, 2, 1))  # (B,emax,W)
+    values_p = _pad_n(values, 1)
+    writable = real & ~overflow[:, None]
+    x = x * writable[:, :, None].astype(x.dtype)
+    bidx = jnp.arange(b)[:, None]
+    safe_idx = jnp.where(writable, er_idx, n)
+    values_p = values_p.at[bidx, safe_idx].set(x)
+    values = values_p[:, :n]
 
     solved = ~failed
     erased = erased & ~solved[:, None]

@@ -1,6 +1,6 @@
 """Hybrid MPA + ML decoder: peel first, Gauss-Jordan the residual.
 
-TPU re-design of the reference's hybrid decoders
+Batched re-design of the reference's hybrid decoders
 (Matlab/My_LDPC_HybridML_Erasure_Decoder.m:3-91,
 Matlab/My_LDPC_HybridML_NonBinary_Erasure_Decoder.m:4-131): cheap iterative
 peeling removes the bulk of erasures; the rare residual stopping set is solved
@@ -21,21 +21,14 @@ from ldpc_erasure_codes_tpu.ops.compact import (
     residual_order,
 )
 from ldpc_erasure_codes_tpu.ops.ge import ge_solve, ge_solve_packed
-from ldpc_erasure_codes_tpu.ops.pallas_peel import (
-    default_b_tile,
-    peel_decode_vmem,
-    tile_wide,
-    untile_wide,
-)
 from ldpc_erasure_codes_tpu.ops.peel import peel_decode
-from ldpc_erasure_codes_tpu.ops.peel_wide import peel_decode_wide
+from ldpc_erasure_codes_tpu.ops.peel_wide import peel_decode_packed
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "gf_order", "peel_iters", "emax", "impl", "ge_subbatch", "b_tile",
-        "tiled", "ge_impl", "static_topo", "fence_gate",
+        "gf_order", "peel_iters", "emax", "impl", "ge_subbatch", "ge_impl",
         "return_overflow",
     ),
 )
@@ -49,11 +42,7 @@ def hybrid_decode(
     emax: int = 128,
     impl: str = "gather",
     ge_subbatch: int = 0,
-    b_tile: int = 0,
-    tiled: bool = False,
     ge_impl: str = "auto",
-    static_topo: tuple | None = None,
-    fence_gate: bool = False,
     return_overflow: bool = False,
 ) -> tuple[jax.Array, ...]:
     """Peel up to ``peel_iters`` sweeps, then GE-solve the residual.
@@ -64,15 +53,9 @@ def hybrid_decode(
     ``ge_subbatch`` > 0 additionally compacts the frames that still hold
     erasures into a bucket of that size before the elimination (overflow →
     failed) — the production setting at low FER, where stopping sets are
-    rare. ``b_tile`` <= 0 auto-sizes the VMEM frame tile to the code/symbol
-    shape (``pallas_peel.default_b_tile``); ``impl="vmem"`` applies to wide
-    (B, n, W) values only — scalar symbols have no VMEM kernel and use the
-    gather path. ``tiled`` (impl="vmem" only): ``values`` is in the
-    tile-major pipeline layout (``encode_packed_vmem(tiled_out=True)`` /
-    ``pallas_peel.tile_wide``) and is returned in it — the peel rides the
-    layout straight through; the GE fallback untiles/retiles INSIDE the
-    residual branch, so the common all-peeled batch never pays a layout
-    transpose.
+    rare. Wide (B, n, W) values with ``impl="gather"`` take the platform's
+    wide peel (``ops.peel_wide.peel_decode_packed``); other values and
+    impls take ``peel_decode``.
 
     Returns (values, erased, iters, failed); with ``return_overflow=True``
     a 5th (B,) bool marks frames failed by BUCKET CONFIGURATION (residual
@@ -81,48 +64,16 @@ def hybrid_decode(
     :func:`hybrid_decode_escalated` re-dispatches, and the count the sim
     driver reports as ``SimStats.escalations``.
     """
-    if tiled and impl != "vmem":
-        raise ValueError("tiled=True requires impl='vmem'")
-    if values.ndim == 3 and impl == "vmem":
-        # Production wide path: the VMEM-resident Pallas decoder (binary or
-        # GF(256); frames stay on chip across the whole peel loop).
-        if tiled:
-            n1 = erased.shape[1] + 1
-            bt_in = values.shape[1] // n1
-            if b_tile > 0 and b_tile != bt_in:
-                raise ValueError(
-                    f"b_tile={b_tile} != tile size {bt_in} of the tiled "
-                    f"values layout {values.shape}"
-                )
-            bt = bt_in
-        else:
-            bt = b_tile if b_tile > 0 else default_b_tile(
-                values.shape[1], values.shape[2]
-            )
-        values, erased, iters = peel_decode_vmem(
-            arrays, values, erased, max_iters=peel_iters, gf_order=gf_order,
-            b_tile=bt, tiled=tiled,
-            schedule="unrolled" if static_topo is not None else "seq",
-            static_topo=static_topo,
-            fence_gate=fence_gate and static_topo is not None,
-        )
-    elif values.ndim == 3 and impl == "gather":
-        # Wide frames use the symbol-major XLA decoder (same fixed point and
-        # iteration accounting; ~2x the frame-major step for binary, and the
-        # GF(256) wide path — SWAR packed MACs, no table gathers).
-        values, erased, iters = peel_decode_wide(
+    if values.ndim == 3 and impl == "gather":
+        values, erased, iters = peel_decode_packed(
             arrays, values, erased, max_iters=peel_iters, gf_order=gf_order
         )
     else:
-        # Scalar/2D symbols have no VMEM kernel: map impl="vmem" to the
-        # gather path explicitly (peel_decode rejects unknown impl strings).
-        scalar_impl = "gather" if impl == "vmem" else impl
         values, erased, iters = peel_decode(
             arrays, values, erased, gf_order=gf_order, max_iters=peel_iters,
-            impl=scalar_impl,
+            impl=impl,
         )
     any_residual = jnp.any(erased)
-    b, n = erased.shape
 
     def ge_flat(v, e):
         if ge_subbatch > 0:
@@ -151,61 +102,7 @@ def hybrid_decode(
 
     def with_ge(args):
         v, e = args
-        ov = bucket_overflow(e)
-        if not tiled:
-            return (*ge_flat(v, e), ov)
-        bt = v.shape[1] // (n + 1)
-        if (
-            ge_subbatch > 0
-            and gf_order == 2
-            and ge_impl in ("auto", "packed")
-        ):
-            # Tile-direct writeback (round 4): the old chain untiled the
-            # FULL batch, scattered the solved sub-batch into it, and
-            # re-tiled — two full-batch HBM relayouts plus a wide-cube
-            # scatter, measured ~170 ms of glue at the GE-hot .2031
-            # point, MORE than the GE itself. Here the GE returns solved
-            # ROWS (ge_solve_packed(return_rows=True)) and they scatter
-            # straight into the tile-major tensor: frame f's symbol s
-            # lives at [f // bt, s * bt + f % bt, :], and discarded slots
-            # target the pad block (row n), which stays zero because
-            # non-writable rows of x are zeroed.
-            sel, is_resid, overflow = residual_order(e, ge_subbatch)
-            t_idx = sel // bt
-            off = sel % bt
-            # Gather the residual frames STRAIGHT from the tile-major
-            # tensor: frame f's symbol s lives at [f // bt, s*bt + f % bt]
-            # (round 5 — `untile_wide(v, b, n)[sel]` materialized the full
-            # 2.14 GB untiled batch before gathering the sub-batch,
-            # measured 27.9 ms of the 125 ms GE branch at the .2031
-            # shape; the direct gather touches only the selected rows).
-            sym = jnp.arange(n, dtype=jnp.int32)
-            vf_sub = v[t_idx[:, None], sym[None, :] * bt + off[:, None]]
-            x, sidx, e_sub, failed_sub = ge_solve_packed(
-                arrays, vf_sub, e[sel], emax=emax, return_rows=True,
-                static_topo=static_topo,
-            )
-            rows = sidx * bt + off[:, None]
-            v = v.at[t_idx[:, None], rows].set(x)
-            e = e.at[sel].set(jnp.where(is_resid[:, None], e_sub, e[sel]))
-            failed = (
-                jnp.zeros((b,), bool).at[sel].set(failed_sub & is_resid)
-                | overflow
-            )
-            return v, e, failed, ov
-        # Untile/retile only inside the residual branch: the all-peeled
-        # batch (the common case at production PER) skips this entirely.
-        vf = untile_wide(v, b, n)
-        if gf_order == 256:
-            vf = jax.lax.bitcast_convert_type(vf, jnp.uint8).reshape(
-                b, n, 4 * vf.shape[2]
-            )
-        vf, e, failed = ge_flat(vf, e)
-        if gf_order == 256:
-            vf = jax.lax.bitcast_convert_type(
-                vf.reshape(b, n, -1, 4), jnp.uint32
-            )
-        return tile_wide(vf, bt), e, failed, ov
+        return (*ge_flat(v, e), bucket_overflow(e))
 
     def without_ge(args):
         v, e = args
@@ -232,17 +129,14 @@ def hybrid_decode_escalated(
     emax: int = 128,
     impl: str = "gather",
     ge_subbatch: int = 0,
-    b_tile: int = 0,
     ge_impl: str = "auto",
-    static_topo: tuple | None = None,
-    fence_gate: bool = False,
 ) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array, int]:
     """:func:`hybrid_decode` with bucket-overflow ESCALATION (host wrapper).
 
-    VERDICT r4 missing #2: the reference's hybrid GE attempts the residual
+    The reference's hybrid GE attempts the residual
     system at whatever width peeling left — its only failure mode is
     genuine singularity (My_LDPC_HybridML_Erasure_Decoder.m:52-62) —
-    whereas the TPU buckets (``emax`` columns, ``ge_subbatch`` frames) are
+    whereas this decoder's buckets (``emax`` columns, ``ge_subbatch`` frames) are
     static, so a decodable frame could be declared failed purely by
     configuration. This wrapper makes bucket sizing a performance knob,
     never a correctness knob: frames flagged failed that still hold
@@ -263,8 +157,7 @@ def hybrid_decode_escalated(
 
     values, erased, iters, failed = hybrid_decode(
         arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters,
-        emax=emax, impl=impl, ge_subbatch=ge_subbatch, b_tile=b_tile,
-        ge_impl=ge_impl, static_topo=static_topo, fence_gate=fence_gate,
+        emax=emax, impl=impl, ge_subbatch=ge_subbatch, ge_impl=ge_impl,
     )
     failed_np = np.asarray(failed)
     if not failed_np.any():

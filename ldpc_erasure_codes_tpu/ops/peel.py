@@ -4,7 +4,7 @@ Algorithm: per iteration, every check with exactly one erased neighbor solves
 it (binary: XOR of its other neighbors; GF(256): table-MAC of the others times
 the inverse of the erased coefficient). The reference sweeps checks
 *sequentially* within an iteration (Matlab/My_LDPC_Erasure_Decoder.m:24-37);
-TPU-native design runs all checks *in parallel* (Jacobi sweep) — both
+this design runs all checks *in parallel* (Jacobi sweep) — both
 schedules peel to the same unique maximal stopping set, so results agree at
 convergence (the reference itself ships a schedule-variant decoder: the 2-way
 check-split FPGA kernel, OpenCL/device/ldpc_erasure_decoder_perf_tests.cl:95-203,
@@ -14,11 +14,11 @@ reported per schedule, not compared across schedules.
 Two implementations:
 
 * ``impl="gather"`` — sparse: neighbor gathers along the Vlist/Clist index
-  matrices, XOR/table-MAC reductions on the VPU. Handles binary and GF(256),
+  matrices, XOR/table-MAC reductions. Handles binary and GF(256),
   scalar and wide (packed multi-word) symbols. Work scales with edges.
 * ``impl="matmul"`` — dense: erasure counts, parities and the solve scatter
-  are three int8 MXU matmuls against the dense H mask. Binary scalar symbols
-  only; wins for large batches where the MXU's int8 throughput beats gather
+  are three int8 matmuls against the dense H mask. Binary scalar symbols
+  only; wins for large batches where the int8 matmul throughput beats gather
   overheads despite the ~150x density waste.
 
 Early stop: per-codeword "done" is zero residual erasures, or optionally
@@ -116,7 +116,7 @@ def peel_step_gather(
 def peel_step_matmul(
     arrays: CodeArrays, values: jax.Array, erased: jax.Array
 ) -> tuple[jax.Array, jax.Array]:
-    """One Jacobi peeling sweep as three int8 MXU matmuls (binary, scalar).
+    """One Jacobi peeling sweep as three int8 matmuls (binary, scalar).
 
     cnt = e @ H^T counts erased neighbors per check; par = y @ H^T mod 2 is
     each check's XOR of known neighbors (= the solved value for degree-1
@@ -177,9 +177,8 @@ def peel_decode(
       codeword finished (max_iters when it never did).
     """
     if impl not in ("gather", "matmul", "worklist"):
-        # "vmem" is a peel_decode_vmem/hybrid_decode-level impl, not one of
-        # this function's steps; rejecting it (and typos) here prevents a
-        # silent fall-through to the gather path.
+        # Rejecting typos here prevents a silent fall-through to the
+        # gather path.
         raise ValueError(
             f"unknown impl {impl!r}: expected gather | matmul | worklist"
         )
@@ -318,7 +317,7 @@ def peel_step_worklist(
     The dense sweep (`peel_step_gather`) XOR-reduces every check's neighbors
     across all W lanes even though only degree-1 checks produce a solution
     and only their single erased neighbor gets written. This sweep computes
-    check degrees on the mask alone (int8 MXU matmul), compacts up to
+    check degrees on the mask alone (int8 matmul), compacts up to
     ``worklist`` degree-1 checks per codeword (argsort), and runs the wide
     gather-XOR/scatter only for those. Wide-lane traffic drops from
     O(m·dmax·W) per sweep to O(worklist·dmax·W), and total wide work across
@@ -330,13 +329,10 @@ def peel_step_worklist(
     2-way split, decoder_perf_tests.cl:95-203); only iteration counts shift
     when the bound binds.
 
-    Measured note (TPU v5e, (2040,1530), W=256, PER .1406): this path is
-    ~4.5x SLOWER than ``peel_step_gather`` despite touching ~4x less data —
-    the data-dependent (argsort-derived) gather/scatter indices defeat XLA's
+    The data-dependent (argsort-derived) gather/scatter indices defeat XLA's
     constant-topology gather lowering, which already streams only the real
-    edges. Retained as the reference implementation of work-list scheduling
-    (and the starting point for a scalar-prefetch Pallas kernel); production
-    decode uses ``impl="gather"``.
+    edges. Retained as the reference implementation of work-list
+    scheduling; production decode uses ``impl="gather"``.
     """
     wide = values.ndim == 3
     b, n = erased.shape
@@ -391,7 +387,7 @@ def peel_decode_mask(
     Whether peeling succeeds depends only on the erasure pattern, never on
     the transmitted values — the same structural fact the reference exploits
     to score RS without an RS decoder (paper tex:220,
-    decoder_perf_tests.cl:74-81). Two int8 MXU matmuls per sweep: erased
+    decoder_perf_tests.cl:74-81). Two int8 matmuls per sweep: erased
     neighbor counts per check, then a degree-1-check scatter. Used by the
     FER simulation fast path; value decoding uses :func:`peel_decode`.
 

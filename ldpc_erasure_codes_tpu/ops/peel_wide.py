@@ -1,4 +1,10 @@
-"""Production wide-symbol peeling decoder (symbol-major layout).
+"""Wide-symbol peeling decoder in XLA (symbol-major layout), and the choice
+between it and the GPU replay kernel.
+
+:func:`peel_decode_wide` is the plain version: the CPU path and the
+reference the replay kernel (ops/peel_replay.py) is tested against.
+:func:`peel_decode_packed` is what callers use; it picks the implementation
+from the platform (utils/device.py).
 
 Honest-throughput redesign of the wide value decode. The measurement story
 (docs/DESIGN.md): early decode benchmarks consumed only the erasure mask and
@@ -35,6 +41,8 @@ import jax.numpy as jnp
 
 from ldpc_erasure_codes_tpu import gf
 from ldpc_erasure_codes_tpu.ops.arrays import CodeArrays
+from ldpc_erasure_codes_tpu.ops.peel_replay import peel_decode_replay
+from ldpc_erasure_codes_tpu.utils import device
 
 
 def _sweep(
@@ -51,7 +59,7 @@ def _sweep(
     GF(256): the check value is the coefficient-weighted syndrome of the
     known neighbors times the erased slot's inverse coefficient
     (My_LDPC_HybridML_NonBinary_Erasure_Decoder.m:37-48), computed with the
-    carryless VPU multiply (gf.gf_mul) — no table gathers in the sweep.
+    carryless multiply (gf.gf_mul) — no table gathers in the sweep.
     """
     idx = arrays.vlist_idx[rows]  # (m', dmax) constants, pad = n
     yv = jnp.take(vt, idx, axis=0)  # (m, dmax, b, W)
@@ -106,7 +114,7 @@ def peel_decode_wide(
     iteration (the FPGA's 2-way check split taken Gauss-Seidel,
     decoder_perf_tests.cl:95-203): per-iteration edge volume is unchanged but
     in-iteration propagation cuts the iteration count ~25-35%, which is pure
-    throughput at HBM-bound shapes. Iteration counts are schedule-variant;
+    throughput at memory-bound shapes. Iteration counts are schedule-variant;
     the fixed point is identical (split=1 matches ``peel_decode`` exactly,
     iteration counts included).
 
@@ -115,7 +123,7 @@ def peel_decode_wide(
         for gf_order=256), erased slots zero.
       erased: (B, n) bool.
       gf_order: 2 or 256 (symbol-major GF(256) sweeps use the carryless
-        multiply; ~same memory traffic as binary plus VPU MAC work).
+        multiply; ~same memory traffic as binary plus multiply-accumulate work).
 
     Returns (values, erased, iters).
     """
@@ -174,3 +182,22 @@ def peel_decode_wide(
             out_vals, jnp.uint8
         ).reshape(b, n, 4 * w)
     return out_vals, ep[:, :n], iters
+
+
+def peel_decode_packed(
+    arrays: CodeArrays,
+    values: jax.Array,
+    erased: jax.Array,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+    gf_order: int = 2,
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """The wide peel for this platform: the replay kernel on a GPU
+    (``utils.device.on_gpu``), :func:`peel_decode_wide` elsewhere. Same
+    arguments and results as :func:`peel_decode_wide`."""
+    fn = peel_decode_replay if device.on_gpu() else peel_decode_wide
+    return fn(
+        arrays, values, erased, max_iters=max_iters,
+        early_stop_k=early_stop_k, gf_order=gf_order,
+    )

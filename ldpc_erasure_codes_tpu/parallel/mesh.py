@@ -4,7 +4,7 @@ Two sharding styles, both over a ``jax.sharding.Mesh``:
 
 * :func:`shard_sim_step` — explicit SPMD via ``shard_map``: every device runs
   the per-shard simulation step on its own fold of the PRNG key and the
-  statistics are ``psum``-reduced over the batch axis (riding ICI). This is
+  statistics are ``psum``-reduced over the batch axis (NVLink between the cards of one host). This is
   the production Monte-Carlo path.
 * plain ``jit`` + ``NamedSharding`` on inputs (used by ``__graft_entry__``'s
   multi-chip dry run) — compiler-driven: XLA inserts the all-reduces for the

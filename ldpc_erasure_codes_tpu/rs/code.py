@@ -9,11 +9,11 @@ Reference semantics:
 * Systematic form ``G_sys = inv(G[:, :k]) @ G`` so the first k symbols are the
   message (Matlab/ReedSolomonErasureCodes.m:31-32).
 
-TPU-first design decision: instead of porting the G-side column-swap
+Design decision: instead of porting the G-side column-swap
 Gauss-Jordan decoder (Matlab/My_RS_Decode_Optimize_With_GFTables.m:15-119),
 RS codes are expressed in the framework's common parity-check form
 ``H = [P^T | I]`` (with ``G_sys = [I | P]``) and *reuse* the batched LDPC
-machinery: the MXU bit-image matmul encoder and the batched GF(256)
+machinery: the bit-image matmul encoder and the batched GF(256)
 Gauss-Jordan erasure solver (ops/ge.py) — which performs the identical
 computation (solve the erased-column system from the known-symbol syndrome).
 The MDS property guarantees any <= n-k erasures are solvable, which the

@@ -1,6 +1,6 @@
 """End-to-end Monte-Carlo FER simulation driver.
 
-TPU re-design of the reference's simulation loops
+Batched re-design of the reference's simulation loops
 (Matlab/LDPCErasureCodes_MessagePassingAlgSim.m:134-243 binary,
 Matlab/ErasureCodes_NonBinaryLDPCSim.m:154-243 GF(256),
 OpenCL host run() + on-device data_in/data_out,
@@ -35,6 +35,7 @@ from ldpc_erasure_codes_tpu.ops.compact import compact_ge_rank
 from ldpc_erasure_codes_tpu.ops.ge import ge_rank_check, ge_solve
 from ldpc_erasure_codes_tpu.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu.ops.peel import peel_decode, peel_decode_mask
+from ldpc_erasure_codes_tpu.ops.peel_wide import peel_decode_packed
 from ldpc_erasure_codes_tpu.parallel import default_mesh, shard_sim_step
 from ldpc_erasure_codes_tpu.sim.config import SimConfig
 from ldpc_erasure_codes_tpu.sim.stats import Accumulator, SimStats, batch_stats
@@ -82,46 +83,21 @@ def _erasure_mask(key: jax.Array, cfg: SimConfig, n: int, per: jax.Array) -> jax
 
 def _decode(
     arrays: CodeArrays, cfg: SimConfig, values: jax.Array, erased: jax.Array,
-    k: int, *, tiled: bool = False, bt: int = 0, static_topo: tuple | None = None
+    k: int,
 ):
     d = cfg.decoder
     early = k if d.early_stop_k else None
     if d.kind == "peel":
-        if d.impl == "vmem" and values.ndim == 3:
-            # Production wide value path: the VMEM-resident Pallas decoder.
-            from ldpc_erasure_codes_tpu.ops.pallas_peel import (
-                default_b_tile,
-                peel_decode_vmem,
+        if values.ndim == 3 and d.impl == "gather":
+            v, e, iters = peel_decode_packed(
+                arrays, values, erased, max_iters=d.max_iters,
+                early_stop_k=early, gf_order=cfg.gf_order,
             )
-
-            if not tiled:
-                bt = d.b_tile if d.b_tile > 0 else default_b_tile(
-                    values.shape[1], values.shape[2]
-                )
-            v, e, iters = peel_decode_vmem(
-                arrays,
-                values,
-                erased,
-                gf_order=cfg.gf_order,
-                max_iters=d.max_iters,
-                early_stop_k=early,
-                b_tile=bt,
-                tiled=tiled,
-                schedule="unrolled" if static_topo is not None else "seq",
-                static_topo=static_topo,
+        else:
+            v, e, iters = peel_decode(
+                arrays, values, erased, gf_order=cfg.gf_order,
+                max_iters=d.max_iters, early_stop_k=early, impl=d.impl,
             )
-            return v, e, iters, None, None
-        # Scalar/2D symbols have no VMEM kernel: impl="vmem" maps to the
-        # gather path explicitly here (peel_decode rejects unknown impls).
-        v, e, iters = peel_decode(
-            arrays,
-            values,
-            erased,
-            gf_order=cfg.gf_order,
-            max_iters=d.max_iters,
-            early_stop_k=early,
-            impl="gather" if d.impl == "vmem" else d.impl,
-        )
         return v, e, iters, None, None
     if d.kind == "hybrid":
         v, e, iters, failed, overflow = hybrid_decode(
@@ -133,9 +109,6 @@ def _decode(
             emax=d.emax,
             impl=d.impl,
             ge_subbatch=d.ge_subbatch,
-            b_tile=bt if tiled else d.b_tile,
-            tiled=tiled,
-            static_topo=static_topo,
             return_overflow=True,
         )
         return v, e, iters, failed, overflow
@@ -216,61 +189,15 @@ def make_sim_step(
     rs_n, rs_k = code.rs_n, code.rs_k
     max_hist = cfg.decoder.max_iters if cfg.decoder.kind == "peel" else cfg.decoder.peel_iters
 
-    if cfg.tiled_pipeline:
-        # Resolve the shared frame tile once: the encoder emits — and the
-        # decoder consumes — the tile-major layout at this tile size.
-        from ldpc_erasure_codes_tpu.ops.pallas_peel import default_b_tile
-
-        words = (
-            cfg.symbol_words if cfg.gf_order == 2 else cfg.symbol_words // 4
-        )
-        tile_bt = (
-            cfg.decoder.b_tile if cfg.decoder.b_tile > 0
-            else default_b_tile(n, words)
-        )
-
-    # Constant-topology unrolled kernels (resolved OUTSIDE the jitted step;
-    # concrete arrays here).
-    static_topo = enc_topo = None
-    if (
-        cfg.decoder.schedule == "unrolled"
-        and cfg.decoder.impl == "vmem"
-        and cfg.symbol_words > 0
-    ):
-        from ldpc_erasure_codes_tpu.ops.pallas_encode import (
-            static_enc_topology,
-        )
-        from ldpc_erasure_codes_tpu.ops.pallas_peel import static_topology
-
-        static_topo = static_topology(arrays)
-        if cfg.tiled_pipeline and cfg.track_values:
-            enc_topo = static_enc_topology(arrays, k)
-
     def step_once(key: jax.Array, per: jax.Array) -> SimStats:
         k_src, k_ch = jax.random.split(key)
         mask = _erasure_mask(k_ch, cfg, n, per)
-        if cfg.track_values and cfg.tiled_pipeline:
-            from ldpc_erasure_codes_tpu.ops.pallas_encode import (
-                encode_packed_vmem,
-            )
-
-            source = _draw_source(k_src, cfg, k)
-            # Tile-major handoff: no apply_erasures pass (masking is fused
-            # into the decoder copy-in) and no HBM layout transposes.
-            cw = encode_packed_vmem(
-                arrays, source, gf_order=cfg.gf_order, b_tile=tile_bt,
-                tiled_out=True, static_topo=enc_topo,
-            )
-            _, e_out, iters, failed, overflow = _decode(
-                arrays, cfg, cw, mask, k, tiled=True, bt=tile_bt,
-                static_topo=static_topo,
-            )
-        elif cfg.track_values:
+        if cfg.track_values:
             source = _draw_source(k_src, cfg, k)
             cw = _encode(arrays, cfg, source)
             recv = ch.apply_erasures(cw, mask)
             _, e_out, iters, failed, overflow = _decode(
-                arrays, cfg, recv, mask, k, static_topo=static_topo
+                arrays, cfg, recv, mask, k
             )
         else:
             e_out, iters, failed, overflow = _decode_mask(arrays, cfg, mask, k)
@@ -338,7 +265,7 @@ def run_fer_point(
     """Simulate one operating point with error-count-targeted stopping.
 
     When ``mesh`` is given (or more than one device is visible) the batch is
-    sharded over it via shard_map and counters psum-reduce over ICI.
+    sharded over it via shard_map and counters psum-reduce across devices.
     """
     if isinstance(code, str):
         code = get_code(code)

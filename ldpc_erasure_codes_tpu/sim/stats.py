@@ -1,4 +1,4 @@
-"""Monte-Carlo statistics: the TPU replacement for the FPGA's ERROR_STAT
+"""Monte-Carlo statistics: the replacement for the FPGA's ERROR_STAT
 channel (OpenCL/device/ldpc_erasure_decoder_top.cl:46-55,124-158) and the
 MATLAB sims' FER bookkeeping (LDPCErasureCodes_MessagePassingAlgSim.m:214-236).
 
@@ -25,8 +25,7 @@ class SimStats(NamedTuple):
     ml_failed: jax.Array  # () int32 — singular/overflow GE frames
     escalations: jax.Array  # () int32 — frames needing bucket escalation
     #   (residual > emax or spilled past the ge_subbatch frame bucket —
-    #   the frames hybrid_decode_escalated would re-dispatch; VERDICT r4
-    #   missing #2. Campaigns at production points assert this stays 0.)
+    #   the frames hybrid_decode_escalated would re-dispatch.)
     erased_symbols: jax.Array  # () int32 — channel erasures (measured PER)
     residual_erasures: jax.Array  # () int32 — erasures left after decode
     iters_hist: jax.Array  # (max_iters + 1,) int32 — iterations to finish

@@ -1,90 +1,21 @@
-"""Device-property probes: VMEM/HBM budgets derived per TPU generation.
+"""The platform decision: which implementation a decode runs.
 
-Round 2 hardcoded the measured v5e numbers (a 70 MB VMEM working-set
-envelope in ``ops.pallas_peel.default_b_tile``, v5e HBM sizes in bench
-comments); on any other TPU generation those silently mis-size the frame
-tile (VERDICT r2 weak #5). This module derives the budgets from the queried
-device kind, with the v5e-calibrated constants as the reference point:
-
-* v5e measurement: a 67 MB working buffer (bt=32 at n=2040/W=256) compiles;
-  100 MB (bt=48) does not — on a 128 MiB-VMEM part, i.e. the pipeline +
-  small lane-padded operands reserve ~58 MB. That reserve is geometry
-  (output double-buffer slack, lane padding), not generation-specific, so
-  other parts scale as ``vmem - reserve``.
-
-Override knob: ``LDPC_TPU_VMEM_MB`` forces the total VMEM size (for new
-device kinds or experiments) without touching code.
+Every choice between a hand-written GPU kernel and the plain XLA version is
+made here, from the platform JAX runs on, and never from a user option.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 
-_MB = 1024 * 1024
 
-# Total VMEM by device-kind prefix (first match wins). TPU v4 and later
-# TensorCores carry 128 MiB of VMEM; v2/v3 cores 16 MiB (x2 for the
-# megacore pairing JAX exposes on v3). CPU entries serve interpret-mode
-# tests, which never hit real Mosaic budgets.
-_VMEM_BY_KIND: tuple[tuple[str, int], ...] = (
-    ("TPU v2", 16 * _MB),
-    ("TPU v3", 32 * _MB),
-    ("TPU v4", 128 * _MB),
-    ("TPU v5 lite", 128 * _MB),
-    ("TPU v5e", 128 * _MB),
-    ("TPU v5", 128 * _MB),
-    ("TPU v6", 128 * _MB),
-    ("TPU7x", 128 * _MB),
-)
+def on_gpu() -> bool:
+    """True when JAX's default backend is a GPU.
 
-# Calibrated on v5e (128 MiB part): 70 MB working set compiles, 100 MB does
-# not -> ~58 MB reserved for the pipeline's other buffers + lane padding.
-_PEEL_RESERVE_BYTES = 58 * _MB
+    The wide peel runs the Triton replay kernel (ops/peel_replay.py) where
+    this holds and ``peel_decode_wide`` elsewhere: the kernel has no CPU
+    lowering, and on the GPU it beat the XLA sweeps end to end for binary
+    and GF(256) symbols (PERF.md).
+    """
+    return jax.default_backend() == "gpu"
 
-
-def vmem_bytes(device: jax.Device | None = None) -> int:
-    """Total VMEM of ``device`` (default: first addressable device)."""
-    env = os.environ.get("LDPC_TPU_VMEM_MB")
-    if env:
-        return int(env) * _MB
-    if device is None:
-        devs = jax.local_devices()
-        if not devs:  # pragma: no cover - defensive
-            return 128 * _MB
-        device = devs[0]
-    kind = getattr(device, "device_kind", "") or ""
-    for prefix, size in _VMEM_BY_KIND:
-        if kind.startswith(prefix):
-            return size
-    # Unknown TPU generations and CPU hosts (interpret mode) assume the
-    # modern 128 MiB part; LDPC_TPU_VMEM_MB overrides if that is wrong.
-    return 128 * _MB
-
-
-def peel_vmem_budget(device: jax.Device | None = None) -> int:
-    """VMEM available to the peel kernel's frame-tile working buffer."""
-    return max(8 * _MB, vmem_bytes(device) - _PEEL_RESERVE_BYTES)
-
-
-def kernel_vmem_limit(device: jax.Device | None = None) -> int:
-    """``vmem_limit_bytes`` ceiling for the big Pallas kernels (7/8 of the
-    part: 112 MiB on a 128 MiB generation — the measured v5e flat ceiling)."""
-    return vmem_bytes(device) * 7 // 8
-
-
-def hbm_bytes(device: jax.Device | None = None) -> int | None:
-    """Queried HBM capacity, or None when the runtime does not expose it."""
-    if device is None:
-        devs = jax.local_devices()
-        if not devs:  # pragma: no cover - defensive
-            return None
-        device = devs[0]
-    try:
-        stats = device.memory_stats()
-    except Exception:  # pragma: no cover - backend-dependent
-        return None
-    if not stats:
-        return None
-    return stats.get("bytes_limit")

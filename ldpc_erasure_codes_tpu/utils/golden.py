@@ -289,7 +289,7 @@ def verify_golden_rs(
     *,
     words: int = 8,
 ) -> tuple[bool, str]:
-    """Accelerator side, RS tier: device rs_encode (MXU bit-image) +
+    """Accelerator side, RS tier: device rs_encode (bit-image) +
     batched GF(256) GE solve, byte symbols replicated across ``words``
     lanes, compared bit-exactly against the MATLAB-faithful oracle files."""
     import jax.numpy as jnp

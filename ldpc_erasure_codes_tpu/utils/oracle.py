@@ -1,10 +1,10 @@
 """NumPy oracle: bit-faithful re-implementations of the reference's MATLAB
 decode/encode semantics.
 
-Every TPU kernel in ops/ is validated against this module on fixed seeds.
+Every device kernel in ops/ is validated against this module on fixed seeds.
 The oracle keeps the reference's conventions — in-band ``-1`` erasure
 sentinels, sequential (Gauss-Seidel) check sweeps, ascending-index pivoting —
-so that fixed points and failure cases can be compared exactly. The TPU
+so that fixed points and failure cases can be compared exactly. The device
 kernels use different schedules (Jacobi sweeps, batched masked GE) that reach
 the same fixed points; tests assert agreement at convergence.
 

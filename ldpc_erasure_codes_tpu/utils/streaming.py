@@ -18,7 +18,7 @@ the working host-side equivalent:
   shaped for the batched device decoders.
 
 Assembly is a host-side streaming concern (per-packet bookkeeping), so it
-lives in Python over NumPy buffers; the decode itself stays on the TPU.
+lives in Python over NumPy buffers; the decode itself stays on the device.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ The reference's production encoder emits real UDP datagrams carrying an
 (OpenCL/device/ldpc_erasure_encoder_VITA_in_UDP_out.cl:84-136; header pack
 :112-114), and its decode side sketches reassembly with reordering logic
 (ldpc_erasure_decoder_with_reordering_logic.cl:17-26). This module is the
-working TPU-framework datapath over real sockets:
+working framework datapath over real sockets:
 
 * :func:`send_blocks` — packetize encoded codeword blocks
   (``streaming.make_packet``) and transmit them over a UDP socket, with
@@ -456,7 +456,7 @@ def loopback_demo(
     vita: bool = False,
     data_per_context: int = 16,
 ) -> StreamResult:
-    """Encode → UDP loopback (lossy, reordered) → reassemble → TPU decode.
+    """Encode → UDP loopback (lossy, reordered) → reassemble → device decode.
 
     Every block whose decode did not fail is verified bit-exact against the
     transmitted codeword. Reference datapath:
@@ -497,8 +497,8 @@ def loopback_demo(
             np.ascontiguousarray(got).view("<u4").reshape(blocks, code.k, w)
         )
     cw = np.asarray(jax.device_get(encode_packed(arrays, src)))  # (B, n, W)
-    # device_get may hand back a transposed-stride view (the VMEM encoder's
-    # on-device layout is symbol-major); force C order before the byte view.
+    # device_get may hand back a transposed-stride view; force C order
+    # before the byte view.
     wire = cw.astype("<u4", order="C").view(np.uint8).reshape(
         blocks, code.n, sb
     )

@@ -1,9 +1,8 @@
-"""Stage anatomy of the wide-RS solver at the VERDICT B=1024/1 KB point.
+"""Stage anatomy of the wide-RS solver at the B=1024 / 1 KB point.
 
-Reproduces docs/DESIGN.md's ge_solve_wide_nb cost split (round 3: narrow GE
-16.4 ms + syndrome 11.5 ms + apply/scatter ~8 ms = 36.3 ms, 44.4 Gbps) so
-round-4 optimizations (SWAR-packed elimination, int8-accumulation matmuls)
-are attributable per stage. Each leg consumes its outputs via digest.
+Times ge_solve_wide_nb's stages (narrow elimination, syndrome, apply and
+scatter) separately, so a change to one stage is attributable. Each leg
+consumes its outputs via digest.
 
 Run: python scripts/bench_rs_stages.py  [env RS_BATCH / RS_WB / RS_E]
 """

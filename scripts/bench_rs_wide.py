@@ -3,9 +3,9 @@
 The reference profiles RS decode time against the number of systematic
 symbols received (Matlab/ReedSolomonErasureCodes.m:83-91, stem plot
 :115-119): its per-payload-byte Gauss-Jordan costs O(k (k - N_sys)^2). The
-TPU formulation (rs_decode_wide: one narrow pattern solve + bit-image MXU
-apply) is ~flat in N_sys and flat per payload byte — this script measures
-both claims on the real chip and emits the VALIDATION rows.
+batched formulation (rs_decode_wide: one narrow pattern solve + bit-image
+matmul apply) should be ~flat in N_sys and flat per payload byte — this
+script measures both claims on the device.
 
 Run: python scripts/bench_rs_wide.py
 """

@@ -1,6 +1,6 @@
 """TX-side throughput: native burst send vs the round-2 Python sendto loop.
 
-Pure host benchmark (no TPU): packetize + transmit a block batch over a UDP
+Pure host benchmark (no accelerator): packetize + transmit a block batch over a UDP
 loopback socket into a draining native-assembler receiver, at the
 VALIDATION.md RX benchmark shape ((2040,1530), 32-byte symbols). Reports
 packets/s and payload Gbps for (a) the round-2 per-datagram Python path and

@@ -1,17 +1,5 @@
-"""Bench contract: the driver's `python bench.py` must always emit one
-parseable JSON line within its wall-clock budget.
-
-Round 3 shipped a bench whose default schedule paid a ~70 s Mosaic compile
-per fresh process; the driver run timed out and the official record captured
-*nothing* (BENCH_r03.json rc=124, parsed=null — VERDICT r3 missing #1/weak
-#1). These tests pin the two defenses so a future default flip cannot ship
-a bench the driver cannot finish:
-
-  1. the budget-aware schedule choice falls back to the cheap-compile
-     kernel when the expensive one has no warm persistent-cache entry
-     (simulated slow path -> must NOT pick "unrolled"), and
-  2. an end-to-end CPU run of bench.py produces exactly one JSON line with
-     the required keys inside a hard time bound.
+"""Bench contract: ``python bench.py`` must emit one parseable JSON line,
+naming the device it ran on, within its wall-clock budget.
 
 Reference analog: the PASSED/FAILED discipline of the OpenCL host harness
 (/root/reference/OpenCL/host/src/main.cpp:298-305).
@@ -26,59 +14,17 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-
-import bench  # noqa: E402
-
-
-class TestChooseSchedule:
-    def test_cold_cache_tight_budget_falls_back(self):
-        # The simulated slow path: unrolled not warm, budget below the
-        # cold-compile threshold.
-        sched, note = bench.choose_schedule("pallas", None, warm=False, budget_s=300)
-        assert sched == "seq"
-        assert note and "falling back" in note
-
-    def test_cold_cache_default_budget_attempts_unrolled(self):
-        # The DEFAULT budget must clear the cold threshold, or a fresh
-        # machine's default run can never warm the unrolled fast path.
-        assert bench.UNROLLED_COLD_BUDGET_S <= 600
-        sched, note = bench.choose_schedule("pallas", None, warm=False, budget_s=600)
-        assert sched == "unrolled"
-        assert note is None
-
-    def test_warm_cache_keeps_unrolled(self):
-        sched, note = bench.choose_schedule("pallas", None, warm=True, budget_s=600)
-        assert sched == "unrolled"
-        assert note is None
-
-    def test_explicit_env_always_wins(self):
-        sched, note = bench.choose_schedule(
-            "pallas", "unrolled", warm=False, budget_s=60
-        )
-        assert sched == "unrolled"
-        assert note is None
-
-    def test_huge_budget_compiles_cold(self):
-        sched, _ = bench.choose_schedule("pallas", None, warm=False, budget_s=1e9)
-        assert sched == "unrolled"
-
-    def test_xla_impl_unaffected(self):
-        sched, note = bench.choose_schedule("xla", None, warm=False, budget_s=600)
-        assert sched == "unrolled"  # schedule is ignored by the xla path
-        assert note is None
 
 
 def test_bench_quick_emits_one_json_line_within_budget(tmp_path):
     """End-to-end: bench.py --quick on CPU finishes fast and prints exactly
     one stdout line that parses as the driver's expected JSON schema."""
     env = dict(os.environ)
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
     env.update(
         BENCH_PLATFORM="cpu",
-        BENCH_IMPL="xla",
         BENCH_BATCH="4",
         BENCH_REPS="2",
-        LDPC_JAX_CACHE_DIR=str(tmp_path / "cache"),
         JAX_PLATFORMS="",  # let BENCH_PLATFORM decide
     )
     t0 = time.perf_counter()
@@ -88,13 +34,35 @@ def test_bench_quick_emits_one_json_line_within_budget(tmp_path):
         text=True,
         timeout=180,
         env=env,
-        cwd=REPO,
+        cwd=tmp_path,
     )
     elapsed = time.perf_counter() - t0
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
     assert len(lines) == 1, f"stdout must be ONE JSON line, got: {proc.stdout!r}"
     rec = json.loads(lines[0])
-    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "device"}
+    assert rec["device"]["platform"] == "cpu"
     assert rec["value"] > 0
     assert elapsed < 180
+    # The CPU backend keeps no persistent compile cache (utils/cache.py).
+    assert not os.path.exists(os.path.join(tmp_path, ".jax_cache"))
+
+
+def test_bench_without_gpu_fails_and_prints_nothing(tmp_path):
+    """With no GPU and no explicit CPU opt-in, bench.py exits non-zero and
+    prints no result: a measurement never falls back to the CPU."""
+    env = dict(os.environ)
+    env.pop("BENCH_PLATFORM", None)
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench.py"), "--quick"],
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env=env,
+        cwd=tmp_path,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+    assert "needs a GPU" in proc.stderr

@@ -77,45 +77,6 @@ def test_compact_solve_matches_full():
     np.testing.assert_array_equal(np.asarray(failc), np.asarray(failf))
 
 
-def test_tiled_subbatch_hybrid_matches_flat():
-    """The tile-direct GE writeback (hybrid_decode tiled=True +
-    ge_subbatch: solved rows scatter straight into the tile-major tensor)
-    equals the flat-layout hybrid bit-exactly: same failed flags, same
-    residual masks, and identical values on every non-failed frame; the
-    tiled pad block stays zero."""
-    from ldpc_erasure_codes_tpu.ops.pallas_encode import encode_packed_vmem
-    from ldpc_erasure_codes_tpu.ops.pallas_peel import untile_wide
-
-    code = get_code("n2040_k1530")
-    arrays = device_arrays(code)
-    b, w, bt = 16, 8, 4
-    key = jax.random.key(0)
-    src = jax.random.bits(key, (b, code.k, w), dtype=jnp.uint32)
-    cw_t = encode_packed_vmem(
-        arrays, src, b_tile=bt, tiled_out=True, interpret=True
-    )
-    cw = untile_wide(cw_t, b, code.n)
-    mask = ch.iid_erasures(jax.random.key(2), (b, code.n), 0.19)
-    recv = jnp.where(mask[:, :, None], jnp.uint32(0), cw)
-    from ldpc_erasure_codes_tpu.ops.pallas_peel import tile_wide
-
-    recv_t = tile_wide(recv, bt)
-    kw = dict(peel_iters=8, emax=256, ge_subbatch=8, impl="vmem")
-    v_t, e_t, it_t, f_t = hybrid_decode(
-        arrays, recv_t, mask, tiled=True, b_tile=bt, **kw
-    )
-    v_f, e_f, it_f, f_f = hybrid_decode(arrays, recv, mask, **kw)
-    np.testing.assert_array_equal(np.asarray(f_t), np.asarray(f_f))
-    np.testing.assert_array_equal(np.asarray(e_t), np.asarray(e_f))
-    vt_flat = np.asarray(untile_wide(v_t, b, code.n))
-    ok = ~np.asarray(f_t)
-    np.testing.assert_array_equal(vt_flat[ok], np.asarray(v_f)[ok])
-    # The tiled pad block (symbol row n of each tile) stays zero.
-    ntiles = b // bt
-    pad_rows = np.asarray(v_t).reshape(ntiles, code.n + 1, bt, w)[:, code.n]
-    assert not pad_rows.any()
-
-
 def test_hybrid_with_subbatch_decodes():
     code = get_code("n2040_k1530")
     arrays = device_arrays(code)

@@ -131,7 +131,7 @@ class TestGESolve:
 
 
 class TestGESolvePacked:
-    """ge_solve_packed (packed-bit elimination + MXU apply) vs ge_solve."""
+    """ge_solve_packed (packed-bit elimination + matmul apply) vs ge_solve."""
 
     def _wide_batch(self, code, arrays, rng, b, w, per):
         src = jnp.asarray(
@@ -262,7 +262,7 @@ class TestHybridDecode:
 
 
 def test_escalation_decodes_overflow_frames():
-    """VERDICT r4 missing #2: a frame whose residual exceeds emax (or the
+    """A frame whose residual exceeds emax (or the
     ge_subbatch frame bucket) must still decode via the escalation path —
     bucket sizing is a performance knob, never a correctness knob."""
     from ldpc_erasure_codes_tpu.ops import hybrid_decode_escalated

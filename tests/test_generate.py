@@ -2,7 +2,7 @@
 
 Model: the reference validates constructions by cycle census
 (Matlab/Hcyclefinder.m) and by using them in the sims; here the generated
-codes are additionally run end-to-end through the TPU decode path.
+codes are additionally run end-to-end through the device decode path.
 """
 
 import numpy as np

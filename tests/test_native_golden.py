@@ -1,7 +1,7 @@
 """Native C++ IO library and golden-vector protocol tests.
 
 The golden protocol is the reference's MATLAB<->OpenCL cross-validation
-(SURVEY §4.1); the native lib is the TPU-native analog of the C++ host
+(SURVEY §4.1); the native lib is the analog of the C++ host
 harness's file readers (OpenCL/host/src/main.cpp:329-401)."""
 
 import numpy as np

@@ -149,7 +149,7 @@ def test_bit_image_dev_matches_host():
 
 
 def test_rs_decode_wide_matches_byte_ge():
-    """ge_solve_wide_nb (narrow elimination + MXU apply) == the byte GE."""
+    """ge_solve_wide_nb (narrow elimination + matmul apply) == the byte GE."""
     from ldpc_erasure_codes_tpu.rs import rs_decode_wide
 
     n, k = 18, 10

@@ -249,91 +249,3 @@ def test_measure_scaling_virtual_mesh():
     assert pts[0].efficiency == 1.0
     assert pts[1].frames == 2 * pts[0].frames
     assert all(p.frames_per_sec > 0 for p in pts)
-
-
-def test_value_sim_vmem_impl_matches_gather():
-    """Value-tracking sim with decoder impl='vmem' (the production Pallas
-    path) produces the same statistics as the XLA gather path."""
-    import jax
-    import jax.numpy as jnp
-
-    from ldpc_erasure_codes_tpu.codes import get_code
-    from ldpc_erasure_codes_tpu.sim import DecoderConfig, SimConfig
-    from ldpc_erasure_codes_tpu.sim.driver import make_sim_step
-
-    code = get_code("n2000_k1000")
-    outs = []
-    for impl in ("gather", "vmem"):
-        cfg = SimConfig(
-            code=code.name,
-            batch=8,
-            symbol_words=2,
-            track_values=True,
-            decoder=DecoderConfig(
-                kind="peel", max_iters=30, early_stop_k=True, impl=impl
-            ),
-        )
-        step = make_sim_step(code, cfg)
-        stats = jax.block_until_ready(
-            step(jax.random.key(5), jnp.float32(0.3))
-        )
-        outs.append(stats)
-    a, b = outs
-    assert int(a.frames) == int(b.frames)
-    assert int(a.block_errors) == int(b.block_errors)
-    assert int(a.erased_symbols) == int(b.erased_symbols)
-
-
-def test_value_sim_tiled_pipeline_matches_flat():
-    """tiled_pipeline=True (Pallas tile-major encode->decode handoff, no
-    apply_erasures pass) yields identical statistics to the flat value
-    pipeline for both decoder kinds — stats are mask-derived and the tiled
-    decode is bit-exact vs the flat layout."""
-    import jax
-    import jax.numpy as jnp
-
-    from ldpc_erasure_codes_tpu.codes import get_code
-    from ldpc_erasure_codes_tpu.sim import DecoderConfig, SimConfig
-    from ldpc_erasure_codes_tpu.sim.driver import make_sim_step
-
-    code = get_code("n2000_k1000")
-    for kind in ("peel", "hybrid"):
-        outs = []
-        for tiled in (False, True):
-            cfg = SimConfig(
-                code=code.name,
-                batch=8,
-                symbol_words=2,
-                track_values=True,
-                tiled_pipeline=tiled,
-                decoder=DecoderConfig(
-                    kind=kind, max_iters=20, peel_iters=3, emax=256,
-                    impl="vmem", b_tile=4,
-                ),
-            )
-            step = make_sim_step(code, cfg)
-            outs.append(
-                jax.block_until_ready(step(jax.random.key(5), jnp.float32(0.35)))
-            )
-        a, b = outs
-        for f in ("frames", "block_errors", "erased_symbols", "ml_failed"):
-            assert int(getattr(a, f)) == int(getattr(b, f)), (kind, f)
-
-
-def test_tiled_pipeline_config_validation():
-    import pytest
-
-    from ldpc_erasure_codes_tpu.sim import DecoderConfig, SimConfig
-
-    with pytest.raises(ValueError):
-        SimConfig(tiled_pipeline=True, symbol_words=0)
-    with pytest.raises(ValueError):
-        SimConfig(
-            tiled_pipeline=True, symbol_words=2,
-            decoder=DecoderConfig(kind="peel", impl="gather"),
-        )
-    with pytest.raises(ValueError):
-        SimConfig(
-            tiled_pipeline=True, symbol_words=2,
-            decoder=DecoderConfig(kind="ml", impl="vmem"),
-        )
